@@ -1,17 +1,15 @@
 #!/usr/bin/env python3
 """Headline benchmark: primary rays/s on the reference's bundled bvh
 stress scene (1920x1080, 4x4 spp, 141 shapes, full 11-level Whitted +
-shadow rays, tex2 texture bound on all 140 cubes), on one TPU chip.
+shadow rays, tex2 texture bound on all 140 cubes), on one CUDA GPU.
 
-Baseline: the reference C++ renderer compiled -O2 on this host, same
-scene and config (`-bvh`, default 4x4 spp, same golden/Textures/tex2.ppm
-bound), single thread: 58.191 s => 570,149 primary rays/s (see BASELINE.md
-for the measurement log).  Both renderers read the texture since r4 —
-earlier rounds measured the UNtextured fail-soft variant on both sides
-(617,378 rays/s reference); numbers across rounds compare like-for-like
-only within the same texture regime.
+Fails without a GPU.  Prints the card's name and power limit, then ONE
+JSON line: {"metric", "value", "unit", "device", "compile_s"}.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+For scale: the reference C++ renderer, compiled -O2 and run single
+threaded on the CPU of the machine that made the goldens, took 58.191 s
+for this frame (570,149 primary rays/s).  That CPU is not recorded, so the
+number is context, not a baseline this script divides by.
 """
 
 import json
@@ -24,37 +22,44 @@ import jax
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-# Reference C++ measured on this host, textured (BASELINE.md,
-# golden/build/run/bvh_s4_textured.time): 1920*1080*16 rays in 58.191 s.
-REF_PRIMARY_RAYS_PER_S = 1920 * 1080 * 16 / 58.191
-
 
 def main():
-    import ray_tracying_tpu as rt
+    from chip_smoke import card_line, require_gpu
+    from ray_tracying import compile_cache
+
+    devices = require_gpu()
+    compile_cache.setup()
+    print(f"card: {card_line()}", flush=True)
+
+    import ray_tracying as rt
 
     scene = rt.load_scene(os.path.join(REPO, "golden", "ASCII", "scene.json"))
     opts = rt.RenderOptions(samples_sqrt=4, light_samples=1)
     width, height = scene.camera.resolution
     n_rays = width * height * opts.samples_sqrt**2
 
-    # Warmup / compile.  render_to_srgb_u8 = the reference's output
-    # encoding (gamma 1.1 + clamp + quantize, applied on device).
+    # Warm-up = compile.  render_to_srgb_u8 ends with uint8 pixels on the
+    # host, so each frame's time covers the whole device program.
+    t0 = time.perf_counter()
     rt.render_to_srgb_u8(scene, opts, key=jax.random.key(0))
+    first = time.perf_counter() - t0
 
     trials = 2
-    t0 = time.time()
+    t0 = time.perf_counter()
     for i in range(trials):
         rt.render_to_srgb_u8(scene, opts, key=jax.random.key(i + 1))
-    dt = (time.time() - t0) / trials
+    dt = (time.perf_counter() - t0) / trials
 
-    rays_per_s = n_rays / dt
+    d = devices[0]
     print(
         json.dumps(
             {
-                "metric": "primary rays/s, bvh scene 1920x1080 4x4spp, 1 chip",
-                "value": round(rays_per_s),
+                "metric": "primary rays/s, bvh scene 1920x1080 4x4spp",
+                "value": n_rays / dt,
                 "unit": "rays/s",
-                "vs_baseline": round(rays_per_s / REF_PRIMARY_RAYS_PER_S, 2),
+                "device": {"platform": d.platform, "kind": d.device_kind,
+                           "count": 1},
+                "compile_s": first - dt,
             }
         )
     )

@@ -11,7 +11,7 @@ import os
 import sys
 
 # One CPU device per process BEFORE jax import; force the CPU backend even
-# if a TPU plugin is importable.
+# if an accelerator plugin is importable.
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=1"
 )
@@ -29,7 +29,10 @@ def main() -> int:
     nproc = int(sys.argv[2])
     port = sys.argv[3]
 
-    from ray_tracying_tpu.parallel.cluster import initialize, local_ray_slice
+    from ray_tracying import compile_cache
+    from ray_tracying.parallel.cluster import initialize, local_ray_slice
+
+    compile_cache.setup()
 
     initialize(
         coordinator_address=f"127.0.0.1:{port}",
@@ -46,9 +49,9 @@ def main() -> int:
     from jax.experimental import multihost_utils as mhu
     from jax.sharding import PartitionSpec as P
 
-    from ray_tracying_tpu.parallel.sharding import make_mesh, trace_wavefront_sharded
-    from ray_tracying_tpu.render.integrator import trace_wavefront
-    from ray_tracying_tpu.scene.loader import load_scene_dict
+    from ray_tracying.parallel.sharding import make_mesh, trace_wavefront_sharded
+    from ray_tracying.render.integrator import trace_wavefront
+    from ray_tracying.scene.loader import load_scene_dict
 
     # Deterministic scene (no area lights / glossy / spp jitter): the
     # sharded and single-process traces must agree exactly regardless of

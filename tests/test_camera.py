@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ray_tracying_tpu.render.camera import camera_basis, pixel_rays
-from ray_tracying_tpu.scene.loader import load_scene_dict
+from ray_tracying.render.camera import camera_basis, pixel_rays
+from ray_tracying.scene.loader import load_scene_dict
 
 from test_scene_loader import minimal_camera
 

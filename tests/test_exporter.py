@@ -336,7 +336,7 @@ def test_material_from_object_no_slots():
 
 def test_exported_material_loads():
     """The exported dict round-trips through the scene loader."""
-    from ray_tracying_tpu.scene.loader import load_scene_dict
+    from ray_tracying.scene.loader import load_scene_dict
 
     mat = material_from_nodes(_mix_shader_graph(0.6, glossy_first=True))
     mat.pop("texture_file")  # no texture files on disk in this test

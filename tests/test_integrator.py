@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ray_tracying_tpu.render.integrator import trace_wavefront
-from ray_tracying_tpu.scene.loader import load_scene_dict
+from ray_tracying.render.integrator import trace_wavefront
+from ray_tracying.scene.loader import load_scene_dict
 
 from test_scene_loader import minimal_camera
 
@@ -186,7 +186,7 @@ def test_stats_mirror_glass_no_drops_at_mult2():
 def test_stats_zoo_scenes_no_drops_at_default_mult():
     """The bundled demo zoo (incl. the mirror+glass cornell) must not drop
     continuations at the default queue_mult=2."""
-    from ray_tracying_tpu.models.zoo import cornell
+    from ray_tracying.models.zoo import cornell
 
     s = cornell(res=(16, 16))
     assert s.has_reflection and s.has_refraction  # exercises 2-way compaction
@@ -194,7 +194,7 @@ def test_stats_zoo_scenes_no_drops_at_default_mult():
     k = jax.random.key(7)
     px = jax.random.uniform(jax.random.fold_in(k, 0), (n,)) * 16
     py = jax.random.uniform(jax.random.fold_in(k, 1), (n,)) * 16
-    from ray_tracying_tpu.render.camera import pixel_rays
+    from ray_tracying.render.camera import pixel_rays
 
     o, d = pixel_rays(s.camera, px, py, jax.random.fold_in(k, 2))
     _, st = trace_wavefront(
@@ -247,7 +247,7 @@ def test_stats_do_not_change_image():
 
 
 def test_render_with_stats_pipeline():
-    from ray_tracying_tpu.render.pipeline import RenderOptions, render_with_stats
+    from ray_tracying.render.pipeline import RenderOptions, render_with_stats
 
     s = _mirror_glass_scene()
     img, stats = render_with_stats(s, RenderOptions(samples_sqrt=1))
@@ -298,3 +298,170 @@ def test_segmented_integrator_matches_unsegmented():
     np.testing.assert_array_equal(
         np.asarray(st1.spawned), np.asarray(st4.spawned)
     )
+
+
+# ---------------------------------------------------------------------------
+# General-path cases carried over from the removed fused-level tests, and
+# the kernel route (interpret mode) against the plain route in the full
+# integrator.
+# ---------------------------------------------------------------------------
+
+import os  # noqa: E402
+
+from ray_tracying.scene.loader import load_scene  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENES = sorted(
+    f[:-5] for f in os.listdir(os.path.join(REPO, "scenes")) if f.endswith(".json")
+)
+
+
+def scene_file(name):
+    return load_scene(
+        os.path.join(REPO, "scenes", name + ".json"),
+        textures_dir=os.path.join(REPO, "golden", "Textures"),
+    )
+
+
+def camera_rays(scene, n, seed=0):
+    """n primary rays at jittered pixel positions of the scene's camera."""
+    from ray_tracying.render.camera import pixel_rays
+
+    w, h = scene.camera.resolution
+    rng = np.random.default_rng(seed)
+    px = jnp.asarray(rng.uniform(0, w, n), jnp.float32)
+    py = jnp.asarray(rng.uniform(0, h, n), jnp.float32)
+    o, d = pixel_rays(scene.camera, px, py, jax.random.key(seed))
+    return o, d, jnp.asarray(rng.uniform(0, 1, n), jnp.float32)
+
+
+def both_routes(scene, o, d, tm, light_samples=1, **kw):
+    key = jax.random.key(5)
+    return [
+        np.asarray(trace_wavefront(scene, o, d, tm, key, light_samples,
+                                   intersect=route, **kw))
+        for route in ("plain", "interpret")
+    ]
+
+
+def test_textured_plane_and_many_lights():
+    """Textured legacy planes (projective UV from the corners) and six
+    point lights: the kernel route matches the plain route."""
+    d = minimal_camera()
+    d["lights"] = [
+        {"location": [2.0 * i - 5, -1.0, 2.0 + 0.3 * i],
+         "color": [1, 1, 1], "intensity": 80.0 + 10 * i}
+        for i in range(6)
+    ]
+    d["cubes"] = [
+        {"translation": [0.5, 5, 0], "rotation": [0.2, 0.3, 0.1],
+         "material": {"diffuse_color": [0.9, 0.8, 0.7], "reflectivity": 0.3,
+                      "texture_file": "checker.jpg"}},
+    ]
+    d["planes"] = [
+        {"corners": [[-4.0, 8.0, -2.0], [4.0, 8.0, -2.0],
+                     [4.0, 8.0, 4.0], [-4.0, 8.0, 4.0]],
+         "material": {"diffuse_color": [0.8, 0.8, 0.8],
+                      "texture_file": "checker.jpg"}},
+    ]
+    s = load_scene_dict(d, textures_dir=os.path.join(REPO, "golden", "Textures"))
+    assert s.has_textures and s.n_planes == 1 and s.n_lights == 6
+    rng = np.random.default_rng(5)
+    dirs = rng.normal(size=(512, 3)).astype(np.float32)
+    dirs[:, 1] = np.abs(dirs[:, 1]) + 0.3
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    plain, kern = both_routes(s, jnp.zeros((512, 3)), jnp.asarray(dirs),
+                              jnp.zeros(512))
+    np.testing.assert_allclose(kern, plain, rtol=2e-5, atol=2e-6)
+    # The texture really shows: not every lit hit has the same colour.
+    assert np.unique(np.round(plain, 4), axis=0).shape[0] > 8
+
+
+def glass_scene():
+    """One-way refraction + mirrors on DIFFERENT materials: the Snell/TIR
+    continuation, the exit flip, and the per-lane reflection-vs-refraction
+    pick (Code/raytracer.cpp:118-150,308-344)."""
+    d = minimal_camera()
+    d["lights"] = [
+        {"location": [0, 0, 5], "color": [1, 1, 1], "intensity": 300.0},
+        {"location": [4, 2, 3], "color": [1.0, 0.8, 0.6], "intensity": 200.0},
+    ]
+    d["spheres"] = [
+        {"location": [0, 5, 0], "radius": 1.2,
+         "material": {"diffuse_color": [0.9, 0.9, 0.9],
+                      "transparency": 0.85, "refractive_index": 1.5}},
+        {"location": [-2.5, 7, 1], "radius": 1.0,
+         "material": {"diffuse_color": [0.2, 0.6, 0.8]}},
+    ]
+    d["cubes"] = [
+        {"translation": [2.5, 6, -0.5], "rotation": [0.2, 0.4, 0.1],
+         "material": {"diffuse_color": [0.9, 0.8, 0.3], "reflectivity": 0.35}},
+    ]
+    d["rectangles"] = [
+        {"translation": [0, 8, 0], "rotation": [1.5707963, 0, 0],
+         "scale": [14, 14, 1],
+         "material": {"diffuse_color": [0.3, 0.5, 0.3]}},
+    ]
+    return load_scene_dict(d)
+
+
+def spread_dirs(n, seed):
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs[:, 1] = np.abs(dirs[:, 1]) + 0.4
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return jnp.zeros((n, 3)), jnp.asarray(dirs), jnp.zeros(n)
+
+
+def test_one_way_refraction():
+    """Glass + mirror (one-way mixed): deterministic, and the two routes
+    agree to float tolerance; rays really refract and reflect."""
+    s = glass_scene()
+    assert s.has_refraction and s.has_reflection and not s.has_two_way
+    o, d, tm = spread_dirs(512, 17)
+    plain, kern = both_routes(s, o, d, tm)
+    np.testing.assert_allclose(kern, plain, rtol=2e-5, atol=2e-6)
+    _, st = trace_wavefront(s, o, d, tm, jax.random.key(5), 1,
+                            return_stats=True)
+    assert int(np.asarray(st.spawned)[0]) > 0
+    assert int(np.asarray(st.live)[2]) > 0
+
+
+def test_mixed_one_way_inslot_matches_compacted():
+    """A mixed one-way scene (mirror and glass on different materials)
+    takes the in-slot queue; forcing compaction must give the same image on
+    a deterministic scene (slot permutation only)."""
+    s = glass_scene()
+    o, d, tm = spread_dirs(256, 23)
+    key = jax.random.key(2)
+    a = np.asarray(trace_wavefront(s, o, d, tm, key, 1))
+    b = np.asarray(trace_wavefront(s, o, d, tm, key, 1, compact="always"))
+    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_non_reflective_scene_single_level():
+    """No material reflects or refracts: one level is traced, and both
+    routes agree."""
+    d = minimal_camera()
+    d["lights"] = [{"location": [0, 0, 5], "color": [1, 1, 1], "intensity": 150.0}]
+    d["spheres"] = [{"location": [0, 6, 0], "radius": 1.5,
+                     "material": {"diffuse_color": [0.7, 0.3, 0.2]}}]
+    s = load_scene_dict(d)
+    o, dd, tm = spread_dirs(64, 2)
+    plain, kern = both_routes(s, o, dd, tm)
+    np.testing.assert_allclose(kern, plain, rtol=2e-5, atol=2e-6)
+    _, st = trace_wavefront(s, o, dd, tm, jax.random.key(1), 1,
+                            return_stats=True)
+    assert st.live.shape == (1,)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_scene_kernel_route_matches_plain(name):
+    """Every committed scene: the full integrator with the kernels (interpret
+    mode) matches the plain route on the same rays and RNG streams."""
+    s = scene_file(name)
+    o, d, tm = camera_rays(s, 192, seed=len(name))
+    ls = 4 if any(s.lights.is_area) else 1
+    plain, kern = both_routes(s, o, d, tm, light_samples=ls)
+    assert np.isfinite(kern).all()
+    np.testing.assert_allclose(kern, plain, rtol=1e-4, atol=1e-5)

@@ -2,11 +2,12 @@
 each primitive's reference quirks (citations in render/intersect.py)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from ray_tracying_tpu.render import intersect as I
-from ray_tracying_tpu.scene.loader import load_scene_dict
+from ray_tracying.render import intersect as I
+from ray_tracying.scene.loader import load_scene_dict
 
 from test_scene_loader import minimal_camera
 
@@ -186,92 +187,21 @@ def test_occluded_matches_min_hit_t():
     np.testing.assert_array_equal(np.asarray(blocked), np.asarray(t <= maxt))
 
 
-def test_occluded_kernel_interpret_matches_oracle():
-    """Exercise the Pallas occlusion kernel (interpret mode) incl. the
-    chunk-padded kind segments and the early-exit while loop."""
-    import os
+# ---------------------------------------------------------------------------
+# Pass-1 routes and the Triton kernels (interpret mode here; compiled on
+# the GPU by the `gpu`-marked test and chip_smoke.py).
+# ---------------------------------------------------------------------------
 
-    if os.environ.get("RTT_SKIP_INTERPRET") == "1":
-        pytest.skip("interpret disabled")
-    d = minimal_camera()
-    d["spheres"] = [{"location": [0, 5, 0], "radius": 1.0}]
-    d["cubes"] = [{"translation": [2, 8, 0], "rotation": [0.2, 0.1, 0.4]}]
-    s = load_scene_dict(d)
-    rng = np.random.default_rng(1)
-    n = 32
-    o = jnp.asarray(rng.normal(size=(n, 3)) * 2.0, jnp.float32)
-    dd = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-    dd = dd / jnp.linalg.norm(dd, axis=1, keepdims=True)
-    maxt = jnp.asarray(rng.uniform(0.5, 20.0, size=n), jnp.float32)
-    os.environ["RTT_PALLAS_INTERPRET"] = "1"
-    try:
-        from ray_tracying_tpu.kernels.closest_hit import occluded_tid
-
-        blocked = np.asarray(occluded_tid(s, o, dd, maxt))
-    finally:
-        del os.environ["RTT_PALLAS_INTERPRET"]
-    t = np.asarray(I.min_hit_t(s, o, dd, jnp.zeros(n)))
-    np.testing.assert_array_equal(blocked, t <= np.asarray(maxt))
+from ray_tracying.kernels import closest_hit as K  # noqa: E402
 
 
-def test_chunked_brute_kernel_interpret_matches_oracle(monkeypatch):
-    """Force the geom-chunked kernel (big-scene path) on a small scene in
-    interpret mode: results must match the dense jnp oracle exactly."""
-    import os
-
-    if os.environ.get("RTT_SKIP_INTERPRET") == "1":
-        pytest.skip("interpret disabled")
-    from ray_tracying_tpu.kernels import closest_hit as CH
-
-    d = minimal_camera()
-    d["spheres"] = [
-        {"location": [x, 5 + 0.3 * x, 0.1 * x], "radius": 0.5}
-        for x in range(-3, 4)
-    ]
-    d["cubes"] = [{"translation": [0, 9, 0], "rotation": [0.1, 0.2, 0.3]}]
-    d["planes"] = [
-        {"corners": [[-9, 12, -9], [9, 12, -9], [9, 12, 9], [-9, 12, 9]]}
-    ]
-    s = load_scene_dict(d)
-    assert s.n_geoms == 9
-    monkeypatch.setattr(CH, "BRUTE_SMEM_MAX_GEOMS", 4)
-    monkeypatch.setattr(CH, "GEOM_CHUNK", 4)  # 9 geoms -> 3 chunks (padded)
-
-    rng = np.random.default_rng(2)
-    n = 48
-    o = jnp.asarray(rng.normal(size=(n, 3)) * 1.5, jnp.float32)
-    dd = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-    dd = dd / jnp.linalg.norm(dd, axis=1, keepdims=True)
-    tm = jnp.zeros(n)
-
-    os.environ["RTT_PALLAS_INTERPRET"] = "1"
-    try:
-        t_k, id_k = CH.closest_hit_tid(s, o, dd, tm)
-    finally:
-        del os.environ["RTT_PALLAS_INTERPRET"]
-    tmat = I.all_hit_t(s, o, dd, tm)
-    t_ref = jnp.min(tmat, axis=1)
-    id_ref = jnp.where(
-        jnp.isfinite(t_ref), jnp.argmin(tmat, axis=1).astype(jnp.int32), -1
-    )
-    np.testing.assert_allclose(
-        np.asarray(t_k), np.asarray(t_ref), rtol=1e-5, atol=1e-6
-    )
-    np.testing.assert_array_equal(np.asarray(id_k), np.asarray(id_ref))
-
-
-def test_fused_normal_kernel_matches_pass2():
-    """Fused-attribute kernel (interpret): t/id/normal/point must match the
-    pass-2 reconstruction path on a scene with every primitive kind."""
-    import os
-
-    if os.environ.get("RTT_SKIP_INTERPRET") == "1":
-        pytest.skip("interpret disabled")
+def every_kind_scene(motion=False):
     d = minimal_camera()
     d["spheres"] = [
         {"location": [0, 5, 0], "radius": 1.0},
         {"location": [2, 6, 0.5], "rotation": [0.3, 0.2, 0.7],
-         "scale": [0.8, 0.5, 1.2], "velocity": [1.0, 0.0, 0.0]},
+         "scale": [0.8, 0.5, 1.2],
+         "velocity": [1.0, 0.0, 0.0] if motion else [0.0, 0.0, 0.0]},
     ]
     d["cubes"] = [{"translation": [-2, 7, 0], "rotation": [0.1, 0.9, 0.4],
                    "scale": [0.7, 1.1, 0.6]}]
@@ -280,35 +210,191 @@ def test_fused_normal_kernel_matches_pass2():
     d["planes"] = [
         {"corners": [[-9, 12, -9], [9, 12, -9], [9, 12, 9], [-9, 12, 9]]}
     ]
-    s = load_scene_dict(d)
-    rng = np.random.default_rng(3)
-    n = 96
-    o = jnp.asarray(rng.normal(size=(n, 3)) * 1.5, jnp.float32)
-    dd = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-    dd = dd / jnp.linalg.norm(dd, axis=1, keepdims=True)
-    tm = jnp.asarray(rng.uniform(0.0, 1.0, size=n), jnp.float32)
+    return load_scene_dict(d)
 
+
+def planes_only_scene():
+    d = minimal_camera()
+    d["planes"] = [
+        {"corners": [[-3, 6, -3], [3, 6, -3], [3, 6, 3], [-3, 6, 3]]},
+        {"corners": [[-1, 4, -1], [2, 4, -1], [2, 5, 2], [-1, 5, 2]]},
+    ]
+    return load_scene_dict(d)
+
+
+def random_rays(n, seed, spread=1.5):
+    rng = np.random.default_rng(seed)
+    o = jnp.asarray(rng.normal(size=(n, 3)) * spread, jnp.float32)
+    dd = rng.normal(size=(n, 3))
+    dd[:, 1] = np.abs(dd[:, 1]) + 0.3
+    dd = jnp.asarray(dd / np.linalg.norm(dd, axis=1, keepdims=True), jnp.float32)
+    tm = jnp.asarray(rng.uniform(0.0, 1.0, size=n), jnp.float32)
+    return o, dd, tm
+
+
+def plain_pass1(s, o, d, tm):
+    m = I.all_hit_t(s, o, d, tm)
+    t = jnp.min(m, axis=1)
+    gid = jnp.where(jnp.isfinite(t), jnp.argmin(m, axis=1), -1)
+    return np.asarray(t), np.asarray(gid)
+
+
+def assert_pass1_equal(t_k, id_k, t_p, id_p):
+    t_k, id_k = np.asarray(t_k), np.asarray(id_k)
+    np.testing.assert_array_equal(id_k, id_p)
+    np.testing.assert_array_equal(np.isfinite(t_k), np.isfinite(t_p))
+    hit = np.isfinite(t_p)
+    np.testing.assert_allclose(t_k[hit], t_p[hit], rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "make,motion",
+    [(every_kind_scene, False), (every_kind_scene, True),
+     (planes_only_scene, False)],
+    ids=["every_kind", "motion_blur", "legacy_planes"],
+)
+def test_kernel_closest_hit_matches_plain(make, motion):
+    s = make(motion) if make is every_kind_scene else make()
+    assert s.has_motion == motion
+    o, d, tm = random_rays(300, seed=3)
+    t_k, id_k = K.closest_hit_tid(s, o, d, tm, interpret=True)
+    assert_pass1_equal(t_k, id_k, *plain_pass1(s, o, d, tm))
+
+
+@pytest.mark.parametrize(
+    "make", [every_kind_scene, planes_only_scene],
+    ids=["every_kind", "legacy_planes"],
+)
+def test_kernel_any_hit_matches_plain(make):
+    s = make()
+    o, d, _ = random_rays(256, seed=4)
+    maxt = jnp.asarray(np.random.default_rng(5).uniform(0.5, 20.0, 256),
+                       jnp.float32)
+    got = np.asarray(K.occluded_tid(s, o, d, maxt, interpret=True))
+    t, _ = plain_pass1(s, o, d, jnp.zeros(256))
+    np.testing.assert_array_equal(got, t <= np.asarray(maxt))
+    assert 0 < got.sum() < got.size
+
+
+def test_kernel_tie_break_first_geom():
+    """Coincident primitives: the first in load order wins, as with
+    argmin / min_element (Code/acceleration.cpp:112,133)."""
+    d = minimal_camera()
+    d["cubes"] = [{"translation": [0, 5, 0], "rotation": [0, 0, 0]}] * 3
+    d["planes"] = [
+        {"corners": [[-1, 4.5, -1], [1, 4.5, -1], [1, 4.5, 1], [-1, 4.5, 1]]}
+    ] * 2
+    s = load_scene_dict(d)
+    o = jnp.zeros((4, 3))
+    dirs = jnp.asarray([[0, 1, 0], [0.05, 1, 0], [0, 1, 0.05], [0, 1, 0]],
+                       jnp.float32)
+    dirs = dirs / jnp.linalg.norm(dirs, axis=1, keepdims=True)
+    t_k, id_k = K.closest_hit_tid(s, o, dirs, jnp.zeros(4), interpret=True)
+    np.testing.assert_array_equal(np.asarray(id_k), [0, 0, 0, 0])
+    assert_pass1_equal(t_k, id_k, *plain_pass1(s, o, dirs, jnp.zeros(4)))
+
+
+@pytest.mark.parametrize("n", [1, K.BLOCK - 1, K.BLOCK + 1, 3 * K.BLOCK + 5])
+def test_kernel_pads_ray_count(n):
+    """Ray counts that are not a multiple of the block are padded with
+    inactive rays and cut back."""
+    s = every_kind_scene()
+    o, d, tm = random_rays(n, seed=n)
+    t_k, id_k = K.closest_hit_tid(s, o, d, tm, interpret=True)
+    assert t_k.shape == (n,) and id_k.shape == (n,) and id_k.dtype == jnp.int32
+    assert_pass1_equal(t_k, id_k, *plain_pass1(s, o, d, tm))
+    b = K.occluded_tid(s, o, d, jnp.full(n, 30.0), interpret=True)
+    assert b.shape == (n,) and b.dtype == jnp.bool_
+
+
+def test_kernel_dead_blocks_report_miss():
+    """A block whose rays are all inactive skips the loops and reports a
+    miss; live blocks are unaffected."""
+    s = every_kind_scene()
+    n = 2 * K.BLOCK
+    o, d, tm = random_rays(n, seed=7)
+    active = jnp.arange(n) >= K.BLOCK  # first block dead
+    t_k, id_k = K.closest_hit_tid(s, o, d, tm, active, interpret=True)
+    t_p, id_p = plain_pass1(s, o, d, tm)
+    assert np.isinf(np.asarray(t_k[: K.BLOCK])).all()
+    assert (np.asarray(id_k[: K.BLOCK]) == -1).all()
+    assert_pass1_equal(t_k[K.BLOCK:], id_k[K.BLOCK:], t_p[K.BLOCK:], id_p[K.BLOCK:])
+    b = np.asarray(K.occluded_tid(s, o, d, jnp.full(n, 30.0), active,
+                                  interpret=True))
+    assert not b[: K.BLOCK].any()
+
+
+def test_kernel_gradient_is_zero_cotangent():
+    """Hit decisions carry zero cotangents; the differentiable distance
+    comes from pass 2 (closest_hit) and matches the plain route's."""
+    s = every_kind_scene()
+    o, d, tm = random_rays(64, seed=8)
+
+    def t_sum(o_, intersect):
+        h = I.closest_hit(s, o_, d, tm, intersect=intersect)
+        return jnp.sum(jnp.where(h.valid, h.t, 0.0))
+
+    def kernel_t_sum(o_):
+        t, _ = K.closest_hit_tid(s, o_, d, tm, interpret=True)
+        return jnp.sum(jnp.where(jnp.isfinite(t), t, 0.0))
+
+    assert float(jnp.abs(jax.grad(kernel_t_sum)(o)).max()) == 0.0
+    g_k = jax.grad(t_sum)(o, "interpret")
+    g_p = jax.grad(t_sum)(o, "plain")
+    np.testing.assert_allclose(np.asarray(g_k), np.asarray(g_p), rtol=1e-5,
+                               atol=1e-6)
+    assert float(jnp.abs(g_p).max()) > 0
+
+
+def test_closest_hit_interpret_route_matches_plain():
+    """The full Hit record (pass 1 by kernel + pass-2 attributes) equals the
+    plain route's."""
+    s = every_kind_scene(motion=True)
+    o, d, tm = random_rays(256, seed=9)
+    a = I.closest_hit(s, o, d, tm, intersect="interpret")
+    b = I.closest_hit(s, o, d, tm, intersect="plain")
+    for f in ("valid", "geom_id"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f)))
+    for f in ("t", "point", "normal", "uv"):
+        np.testing.assert_allclose(np.asarray(getattr(a, f)),
+                                   np.asarray(getattr(b, f)), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_route_plain_on_cpu_without_env():
+    """On the CPU backend "auto" is the plain path, with no env var."""
     import os
 
-    os.environ["RTT_PALLAS_INTERPRET"] = "1"
-    try:
-        fast = I.closest_hit(s, o, dd, tm, differentiable=False)
-        slow = I.closest_hit(s, o, dd, tm, differentiable=True)
-    finally:
-        del os.environ["RTT_PALLAS_INTERPRET"]
-    np.testing.assert_array_equal(np.asarray(fast.valid), np.asarray(slow.valid))
-    m = np.asarray(fast.valid)
-    np.testing.assert_array_equal(
-        np.asarray(fast.geom_id)[m], np.asarray(slow.geom_id)[m]
-    )
-    np.testing.assert_allclose(
-        np.asarray(fast.t)[m], np.asarray(slow.t)[m], rtol=1e-5, atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(fast.point)[m], np.asarray(slow.point)[m],
-        rtol=1e-4, atol=1e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(fast.normal)[m], np.asarray(slow.normal)[m],
-        rtol=1e-4, atol=1e-4,
-    )
+    assert not any(k.startswith("RTT_") for k in os.environ)
+    s = every_kind_scene()
+    assert jax.default_backend() == "cpu"
+    assert I.route(s) == "plain"
+    assert I.route(s, "plain") == "plain"
+    assert I.route(s, "interpret") == "interpret"
+
+
+def test_route_falls_back_for_tables_out_of_kind_order():
+    """A hand-built scene whose kind counts do not describe its primitive
+    table, or one with no geometry, takes the plain path on every route."""
+    s = every_kind_scene()
+    assert K.kind_ranges(s) == ((0, 0, 2), (1, 2, 3), (2, 3, 4), (3, 4, 5))
+    odd = s.replace(kind_counts=(0, 0, 0))
+    assert K.kind_ranges(odd) is None
+    assert I.route(odd, "interpret") == "plain"
+    assert I.route(scene_with(), "interpret") == "plain"
+    with pytest.raises(ValueError):
+        I.route(s, "pallas")
+
+
+@pytest.mark.gpu
+def test_kernels_compiled_match_plain_on_gpu():
+    """The compiled Triton kernels against the plain XLA path on the card."""
+    s = every_kind_scene(motion=True)
+    o, d, tm = random_rays(4096, seed=10)
+    t_k, id_k = jax.jit(K.closest_hit_tid)(s, o, d, tm)
+    assert_pass1_equal(t_k, id_k, *plain_pass1(s, o, d, tm))
+    maxt = jnp.full(4096, 8.0)
+    got = np.asarray(jax.jit(K.occluded_tid)(s, o, d, maxt))
+    t, _ = plain_pass1(s, o, d, jnp.zeros(4096))
+    np.testing.assert_array_equal(got, t <= 8.0)

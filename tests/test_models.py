@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ray_tracying_tpu import models, ops
+from ray_tracying import models, ops
 
 
 def test_registry_contains_all_demos():

@@ -16,7 +16,7 @@ import numpy as np
 import jax
 import pytest
 
-import ray_tracying_tpu as rt
+import ray_tracying as rt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = os.path.join(REPO, "scenes")

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from ray_tracying_tpu.io.ppm import read_ppm, write_ppm
+from ray_tracying.io.ppm import read_ppm, write_ppm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "golden", "Output")

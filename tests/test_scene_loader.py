@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ray_tracying_tpu.scene.loader import load_scene_dict
-from ray_tracying_tpu.scene.types import KIND_CUBE, KIND_RECT, KIND_SPHERE
+from ray_tracying.scene.loader import load_scene_dict
+from ray_tracying.scene.types import KIND_CUBE, KIND_RECT, KIND_SPHERE
 
 
 def minimal_camera():

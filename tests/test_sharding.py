@@ -5,14 +5,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ray_tracying_tpu.parallel.sharding import make_mesh, trace_wavefront_sharded
-from ray_tracying_tpu.render.integrator import trace_wavefront
+from ray_tracying.parallel.sharding import make_mesh, trace_wavefront_sharded
+from ray_tracying.render.integrator import trace_wavefront
 
 from test_diff import tiny_scene
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
-)
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 (virtual) devices")
 
 
 def make_rays(n):

@@ -1,12 +1,10 @@
 #!/usr/bin/env python3
-"""Multi-chip scaling-efficiency benchmark (BASELINE.md target: >= 85%).
+"""Multi-device scaling sweep (BASELINE.json target: >= 85% efficiency).
 
-On real multi-chip hardware this sweeps mesh sizes 1..N and reports
-rays/s and efficiency vs linear scaling.  This host exposes ONE real TPU
-chip, so by default the sweep degenerates to the 1-chip row; pass
---virtual to validate the sharded program end-to-end on an 8-device
-virtual CPU mesh instead (correctness + compiled-collective check, NOT a
-wall-clock measurement — the host has 2 cores).
+On the GPUs of one host this sweeps mesh sizes 1..N and reports rays/s
+and efficiency vs linear scaling.  --virtual validates the sharded
+program end-to-end on an 8-device virtual CPU mesh instead (correctness +
+compiled-collective check, NOT a wall-clock measurement).
 
 Rays shard over the mesh, the scene replicates, no collective runs during
 tracing (parallel/sharding.py).  The printed radiance checksum varies
@@ -36,26 +34,28 @@ def main():
             os.environ.get("XLA_FLAGS", "")
             + " --xla_force_host_platform_device_count=8"
         ).strip()
-        os.environ["RTT_DISABLE_PALLAS"] = "1"
-        import jax
+        os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
 
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
-    else:
-        import jax
+    from ray_tracying import compile_cache
+
+    compile_cache.setup()
+    if not args.virtual:
+        from chip_smoke import card_line, require_gpu
+
+        require_gpu()
+        print(f"card: {card_line()}", flush=True)
 
     import jax.numpy as jnp
 
-    from ray_tracying_tpu import models
-    from ray_tracying_tpu.parallel.sharding import (
+    from ray_tracying import models
+    from ray_tracying.parallel.sharding import (
         make_mesh,
         trace_wavefront_sharded,
     )
-    from ray_tracying_tpu.render.camera import pixel_rays
+    from ray_tracying.render.camera import pixel_rays
 
-    devices = jax.devices("cpu") if args.virtual else jax.devices()
+    devices = jax.devices()
     scene = models.bvh_stress()
     w, h = scene.camera.resolution
     n = args.rays
@@ -69,7 +69,7 @@ def main():
     sizes = [s for s in (1, 2, 4, 8, 16, 32) if s <= len(devices)]
     base = None
     rows = []
-    print(f"{'chips':>6} {'seconds':>9} {'rays/s':>14} {'efficiency':>11} checksum")
+    print(f"{'devices':>7} {'seconds':>9} {'rays/s':>14} {'efficiency':>11} checksum")
     for s in sizes:
         mesh = make_mesh(s)
         f = jax.jit(
@@ -87,19 +87,17 @@ def main():
         eff = rps / (base * s)
         rows.append(
             {
-                "chips": s,
+                "devices": s,
                 "seconds": round(dt, 4),
                 "rays_per_s": round(rps),
                 "efficiency_vs_linear": round(eff, 4),
                 "radiance_checksum": round(chk, 2),
             }
         )
-        print(f"{s:>6} {dt:>9.3f} {rps:>14,.0f} {eff:>10.1%} {chk:.4f}")
+        print(f"{s:>7} {dt:>9.3f} {rps:>14,.0f} {eff:>10.1%} {chk:.4f}")
 
     if args.out:
         import json
-
-        import jax as _jax
 
         # Cross-size agreement: same rays, same scene — checksums differ
         # only in stochastic-effect RNG (per-shard key decorrelation).
@@ -107,20 +105,18 @@ def main():
         spread = (max(chks) - min(chks)) / max(abs(min(chks)), 1e-9)
         report = {
             "mode": "virtual-8cpu" if args.virtual else "real",
-            "backend": _jax.devices()[0].platform
-            if not args.virtual
-            else "cpu",
-            "n_devices_visible": len(devices),
+            "device": {"platform": devices[0].platform,
+                       "kind": devices[0].device_kind,
+                       "count": len(devices)},
             "rays": n,
             "scene": "bvh_stress (bundled 140-cube)",
             "note": (
                 "virtual mode validates the sharded program end-to-end "
                 "(shard_map lowering, collectives, per-shard RNG) on an "
-                "8-device CPU mesh of a 2-core host — the wall-clock "
-                "column is NOT a hardware scaling measurement"
+                "8-device CPU mesh — the wall-clock column is NOT a "
+                "hardware scaling measurement"
                 if args.virtual
-                else "real-device sweep; this host exposes "
-                f"{len(devices)} chip(s)"
+                else "real-device sweep"
             ),
             "rows": rows,
             "checksum_rel_spread": round(spread, 6),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Blender -> scene.json exporter (the counterpart of the reference's
 Blend/exporter.py, reimplemented — not copied — against the same JSON
-schema so .blend assets flow into ray_tracying_tpu).
+schema so .blend assets flow into ray_tracying).
 
 Run headless:  blender --background scene.blend --python blender_exporter.py
 Output:        scene.json next to the .blend (or $RTT_EXPORT_PATH)
